@@ -1,6 +1,6 @@
-// Native ingest runtime for the TPU OFDM modem.
+// Native ingest runtime for the c_ofdm modem.
 //
-// TPU-native counterpart of the reference's SDR ingest path: the pthread +
+// Host-side counterpart of the reference's SDR ingest path: the pthread +
 // two-semaphore double buffer of rx.cpp:48-66 / st_rx.cpp:43-106, the int16
 // staging of sdr/sdr.hpp:208-273, and the int16 -> float conversion of
 // OFDM/Frame.hpp:472-516 (whose AVX2 version the reference left commented

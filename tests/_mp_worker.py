@@ -28,12 +28,12 @@ def main():
     import numpy as np
     import jax.numpy as jnp
 
-    from c_ofdm_tpu import ModemConfig, make_frame_spec
-    from c_ofdm_tpu.mac.mac import Mac
-    from c_ofdm_tpu.models import tx as txm
-    from c_ofdm_tpu.parallel.ingest import make_global_capture
-    from c_ofdm_tpu.parallel.mesh import make_modem_mesh
-    from c_ofdm_tpu.parallel.sharded import make_sharded_receiver
+    from c_ofdm import ModemConfig, make_frame_spec
+    from c_ofdm.mac.mac import Mac
+    from c_ofdm.models import tx as txm
+    from c_ofdm.parallel.ingest import make_global_capture
+    from c_ofdm.parallel.mesh import make_modem_mesh
+    from c_ofdm.parallel.sharded import make_sharded_receiver
 
     cfg = ModemConfig()
     spec = make_frame_spec(cfg, dtype=jnp.complex64)
@@ -90,10 +90,10 @@ def main():
     # carry state (one frame of overlap-save halo per channel) lives on the
     # devices between steps and never crosses hosts — a frame straddling the
     # buffer boundary must still decode exactly once.
-    from c_ofdm_tpu.models import streaming
-    from c_ofdm_tpu.parallel.ingest import (make_global_channel_array,
+    from c_ofdm.models import streaming
+    from c_ofdm.parallel.ingest import (make_global_channel_array,
                                             make_global_stream_state)
-    from c_ofdm_tpu.parallel.sharded import make_sharded_streaming
+    from c_ofdm.parallel.sharded import make_sharded_streaming
 
     buf_len = 4 * cfg.frame_len
     sstarts = [500, buf_len - cfg.frame_len // 2, buf_len + 2 * cfg.frame_len]

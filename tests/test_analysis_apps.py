@@ -1,15 +1,19 @@
 """Dashboard and BER-sweep app smoke tests (CPU)."""
 
 import json
+import os
 import subprocess
 import sys
+
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def _run(code, timeout=400):
     return subprocess.run(
         [sys.executable, "-c",
          "import jax; jax.config.update('jax_platforms','cpu');" + code],
-        capture_output=True, text=True, cwd="/root/repo", timeout=timeout)
+        capture_output=True, text=True, cwd=REPO, timeout=timeout)
 
 
 def test_dashboard(tmp_path):
@@ -19,7 +23,7 @@ def test_dashboard(tmp_path):
         {"buf": 0, "slot": 1, "pos": 2, "seq": 1, "cfo": 1e-4, "crc_ok": True},
     ]))
     png = tmp_path / "d.png"
-    r = _run(f"from c_ofdm_tpu.apps.dashboard import main;"
+    r = _run(f"from c_ofdm.apps.dashboard import main;"
              f"main(['--metrics','{m}','--png','{png}'])")
     assert r.returncode == 0, r.stderr
     assert "frames=2 crc_ok=2" in r.stdout
@@ -28,7 +32,7 @@ def test_dashboard(tmp_path):
 
 def test_ber_sweep(tmp_path):
     out = tmp_path / "ber.jsonl"
-    r = _run(f"from c_ofdm_tpu.apps.ber_sweep import main;"
+    r = _run(f"from c_ofdm.apps.ber_sweep import main;"
              f"main(['--mods','4','--snrs','12:29:8','--frames','4',"
              f"'--out','{out}'])")
     assert r.returncode == 0, r.stderr
@@ -44,7 +48,7 @@ def test_ber_sweep_soft(tmp_path):
     """--soft sweeps MAC-spread logical BER, hard majority vote vs LLR
     combining; soft must be no worse at the noisy point."""
     out = tmp_path / "soft.jsonl"
-    r = _run(f"from c_ofdm_tpu.apps.ber_sweep import main;"
+    r = _run(f"from c_ofdm.apps.ber_sweep import main;"
              f"main(['--mods','4','--snrs','9:20:9','--frames','8','--soft',"
              f"'--out','{out}'])")
     assert r.returncode == 0, r.stderr

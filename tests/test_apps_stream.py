@@ -10,11 +10,14 @@ import numpy as np
 import pytest
 
 
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
 def _run(code, timeout=400):
     return subprocess.run(
         [sys.executable, "-c",
          "import jax; jax.config.update('jax_platforms','cpu');" + code],
-        capture_output=True, text=True, cwd="/root/repo", timeout=timeout)
+        capture_output=True, text=True, cwd=REPO, timeout=timeout)
 
 
 def test_txstream_rxstream_cli(tmp_path):
@@ -26,12 +29,12 @@ def test_txstream_rxstream_cli(tmp_path):
     log = tmp_path / "LOG.txt"
     metrics = tmp_path / "m.jsonl"
 
-    r = _run(f"from c_ofdm_tpu.apps.txstream import main; import sys;"
+    r = _run(f"from c_ofdm.apps.txstream import main; import sys;"
              f"sys.exit(main(['--in','{src}','--out','{stream}','--gap','500']))")
     assert r.returncode == 0, r.stderr
     assert "transmitted" in r.stderr
 
-    r = _run(f"from c_ofdm_tpu.apps.rxstream import main; import sys;"
+    r = _run(f"from c_ofdm.apps.rxstream import main; import sys;"
              f"sys.exit(main(['--in','{stream}','--format','i16',"
              f"'--out','{decoded}','--log','{log}','--metrics','{metrics}']))")
     assert r.returncode == 0, r.stderr
@@ -47,8 +50,8 @@ def test_stream_state_checkpoint_resume(tmp_path, spec64, cfg):
     """Split a capture at a buffer boundary; resume from a saved checkpoint;
     frames straddling the split must still decode exactly once."""
     import jax.numpy as jnp
-    from c_ofdm_tpu.mac.mac import Mac
-    from c_ofdm_tpu.models import streaming, tx as txm
+    from c_ofdm.mac.mac import Mac
+    from c_ofdm.models import streaming, tx as txm
 
     mac = Mac(frame_bytes=cfg.frame_bytes, spread=cfg.mod_type)
     rng = np.random.default_rng(3)
@@ -94,18 +97,18 @@ def test_rxstream_metadata_drain(tmp_path):
     stream = tmp_path / "stream.bin"
     summary = tmp_path / "s.json"
 
-    r = _run(f"from c_ofdm_tpu.apps.txstream import main; import sys;"
+    r = _run(f"from c_ofdm.apps.txstream import main; import sys;"
              f"sys.exit(main(['--in','{src}','--out','{stream}','--gap','777']))")
     assert r.returncode == 0, r.stderr
 
     full = tmp_path / "full.json"
-    r = _run(f"from c_ofdm_tpu.apps.rxstream import main; import sys;"
+    r = _run(f"from c_ofdm.apps.rxstream import main; import sys;"
              f"sys.exit(main(['--in','{stream}','--format','i16',"
              f"'--out','{tmp_path}/d.bin','--summary-json','{full}']))")
     assert r.returncode == 0, r.stderr
     sf = json.loads(full.read_text())
 
-    r = _run(f"from c_ofdm_tpu.apps.rxstream import main; import sys;"
+    r = _run(f"from c_ofdm.apps.rxstream import main; import sys;"
              f"sys.exit(main(['--in','{stream}','--format','i16',"
              f"'--out','{tmp_path}/d2.bin','--drain','metadata',"
              f"'--summary-json','{summary}']))")
@@ -129,13 +132,13 @@ def test_rxstream_metadata_chunked(tmp_path):
     src = tmp_path / "p.txt"
     src.write_bytes(payload)
     stream = tmp_path / "s.bin"
-    r = _run(f"from c_ofdm_tpu.apps.txstream import main; import sys;"
+    r = _run(f"from c_ofdm.apps.txstream import main; import sys;"
              f"sys.exit(main(['--in','{src}','--out','{stream}','--gap','900']))")
     assert r.returncode == 0, r.stderr
     outs = {}
     for chunk in ("1", "2"):
         sj = tmp_path / f"s{chunk}.json"
-        r = _run(f"from c_ofdm_tpu.apps.rxstream import main; import sys;"
+        r = _run(f"from c_ofdm.apps.rxstream import main; import sys;"
                  f"sys.exit(main(['--in','{stream}','--format','i16',"
                  f"'--out','{tmp_path}/o{chunk}.bin','--drain','metadata',"
                  f"'--chunk','{chunk}','--summary-json','{sj}']))")

@@ -4,11 +4,11 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from c_ofdm_tpu.channel.sim import ChannelParams, apply_channel
-from c_ofdm_tpu.mac.mac import Mac
-from c_ofdm_tpu.models import rx as rxm
-from c_ofdm_tpu.models import tx as txm
-from c_ofdm_tpu.models.streaming import StreamingReceiver
+from c_ofdm.channel.sim import ChannelParams, apply_channel
+from c_ofdm.mac.mac import Mac
+from c_ofdm.models import rx as rxm
+from c_ofdm.models import tx as txm
+from c_ofdm.models.streaming import StreamingReceiver
 
 
 def test_config4_64_parallel_streams_one_chip(spec64, cfg):
@@ -29,12 +29,12 @@ def test_config4_64_parallel_streams_one_chip(spec64, cfg):
     assert np.allclose(np.asarray(res.cfo), 2.5e-3, atol=1e-3)
 
 
-def test_config2_payload_file_over_multipath_streaming(spec64, cfg):
+def test_config2_payload_file_over_multipath_streaming(spec64, cfg, golden):
     """BASELINE config #2: file payload end-to-end over a simulated multipath
     channel, through the streaming pipeline (the committed wav is absent from
     the reference snapshot; any byte stream is equivalent)."""
     mac = Mac(frame_bytes=cfg.frame_bytes, spread=cfg.mod_type)
-    with open("/root/reference/WARANDPEACE.txt", "rb") as f:
+    with open(golden("WARANDPEACE.txt"), "rb") as f:
         data = np.frombuffer(f.read(mac.payload * 5), dtype=np.uint8)
     chunks = data.reshape(5, mac.payload)
     wire = mac.write(jnp.asarray(chunks), jnp.arange(5, dtype=jnp.uint32))

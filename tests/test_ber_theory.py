@@ -47,10 +47,10 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from c_ofdm_tpu import ModemConfig, make_frame_spec
-from c_ofdm_tpu.channel.sim import ChannelParams, apply_channel
-from c_ofdm_tpu.models import rx as rxm, tx as txm
-from c_ofdm_tpu.ops import modulation
+from c_ofdm import ModemConfig, make_frame_spec
+from c_ofdm.channel.sim import ChannelParams, apply_channel
+from c_ofdm.models import rx as rxm, tx as txm
+from c_ofdm.ops import modulation
 
 ERASURE_BER = 0.25     # a frame above this is an estimator blowup, not noise
 
@@ -133,7 +133,7 @@ def test_streaming_ber_within_budget_of_theory():
     mod_type, snr_db, loss_budget_db = 4, 14.5, 1.25
     cfg = ModemConfig(mod_type=mod_type)
     spec = make_frame_spec(cfg, dtype=jnp.complex64)
-    from c_ofdm_tpu.models import streaming
+    from c_ofdm.models import streaming
 
     rng = np.random.default_rng(99)
     buf_len = cfg.rx_buf_size * cfg.frame_len

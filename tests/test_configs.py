@@ -6,11 +6,11 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from c_ofdm_tpu.config import ModemConfig
-from c_ofdm_tpu.models.frame import make_frame_spec
-from c_ofdm_tpu.models import rx as rxm
-from c_ofdm_tpu.models import tx as txm
-from c_ofdm_tpu.channel.sim import ChannelParams, apply_channel
+from c_ofdm.config import ModemConfig
+from c_ofdm.models.frame import make_frame_spec
+from c_ofdm.models import rx as rxm
+from c_ofdm.models import tx as txm
+from c_ofdm.channel.sim import ChannelParams, apply_channel
 
 CONFIGS = [
     # 1k FFT, QAM16, 16 pilots
@@ -85,3 +85,9 @@ def test_ct_backend_wideband_impaired():
         assert ber < 1e-3, f"{be}: BER {ber}"
         consts[be] = np.asarray(res.constellation)
     np.testing.assert_allclose(consts["ct"], consts["xla"], atol=2e-3)
+
+
+@pytest.mark.parametrize("backend", ["pallas", "fftw"])
+def test_make_frame_spec_rejects_unknown_fft_backend(backend):
+    with pytest.raises(ValueError, match="fft_backend"):
+        make_frame_spec(ModemConfig(), fft_backend=backend)

@@ -21,9 +21,9 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from c_ofdm_tpu import ModemConfig, make_frame_spec
-from c_ofdm_tpu.mac.mac import Mac
-from c_ofdm_tpu.models import streaming, tx as txm
+from c_ofdm import ModemConfig, make_frame_spec
+from c_ofdm.mac.mac import Mac
+from c_ofdm.models import streaming, tx as txm
 
 # CI default 20 (~85 s); deeper sweeps via GEOM_SWEEP_N=60 etc. for
 # out-of-CI verification passes
@@ -155,7 +155,7 @@ def _pilot_power_fraction(cfg) -> float:
     dense-lag correlation is non-discriminative by physics.  The reference
     is immune for the same reason the gated path is: it only correlates in
     a short window right after a t2 detect (`rx.cpp:133,158`)."""
-    from c_ofdm_tpu.ops import modulation
+    from c_ofdm.ops import modulation
     p_pilot = cfg.num_pilot_subc * cfg.pilot_ampl ** 2
     e_data = float(np.mean(np.abs(modulation.constellation(cfg.mod_type)) ** 2))
     return p_pilot / (p_pilot + cfg.num_data_subc * e_data)

@@ -6,8 +6,8 @@ bit-/pattern-exactly, the JAX path only has to match the oracle.
 
 import numpy as np
 
-from c_ofdm_tpu.oracle import reference as oracle
-from c_ofdm_tpu.utils.mt19937 import uniform_bytes
+from c_ofdm.oracle import reference as oracle
+from c_ofdm.utils.mt19937 import uniform_bytes
 
 
 def test_mt19937_preamble_bytes(cfg):

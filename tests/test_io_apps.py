@@ -6,8 +6,10 @@ import sys
 
 import numpy as np
 
-from c_ofdm_tpu.io import binio
-from c_ofdm_tpu.io.trace import StageTrace, link_metrics
+from c_ofdm.io import binio
+from c_ofdm.io.trace import StageTrace, link_metrics
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def test_binio_roundtrips(tmp_path):
@@ -28,10 +30,10 @@ def test_binio_roundtrips(tmp_path):
     assert np.allclose(binio.read_doubles(p3), d)
 
 
-def test_binio_reads_reference_artifacts():
-    cap = binio.read_complex64f("/root/reference/data/data.bin")
+def test_binio_reads_reference_artifacts(golden):
+    cap = binio.read_complex64f(golden("data/data.bin"))
     assert cap.shape == (246656,)
-    src = binio.read_complex_int16("/root/reference/data/source.bin")
+    src = binio.read_complex_int16(golden("data/source.bin"))
     assert src.shape == (6016,)
 
 
@@ -50,8 +52,8 @@ def test_stage_trace(tmp_path):
     assert "ITER:0" in txt and "SEQ:4" in txt
 
 
-def test_link_metrics_golden():
-    con = binio.read_complex64f("/root/reference/data/constell.bin")
+def test_link_metrics_golden(golden):
+    con = binio.read_complex64f(golden("data/constell.bin"))
     m = link_metrics(con, 4)
     # the committed OTA capture measures ~9.3% EVM (BASELINE.md)
     assert 0.07 < m["evm_rms"] < 0.12
@@ -66,24 +68,25 @@ def test_loopback_app_cli(tmp_path):
     out = subprocess.run(
         [sys.executable, "-c",
          "import jax; jax.config.update('jax_platforms','cpu');"
-         "from c_ofdm_tpu.apps.loopback import main; import sys;"
+         "from c_ofdm.apps.loopback import main; import sys;"
          f"sys.exit(main(['--dump', '{tmp_path}', '--snr-db', '28']))"],
-        capture_output=True, text=True, env=env, cwd="/root/repo", timeout=300)
+        capture_output=True, text=True, env=env, cwd=REPO, timeout=300)
     assert out.returncode == 0, out.stdout + out.stderr
     assert "ACCURACY: 1.0" in out.stdout
     assert (tmp_path / "constell.bin").exists()
     assert (tmp_path / "source.bin").exists()
 
 
-def test_loopback_app_replay_golden(tmp_path):
+def test_loopback_app_replay_golden(tmp_path, golden):
+    data, text = golden("data/data.bin"), golden("WARANDPEACE.txt")
     out = subprocess.run(
         [sys.executable, "-c",
          "import jax; jax.config.update('jax_platforms','cpu');"
          "jax.config.update('jax_enable_x64', True);"
-         "from c_ofdm_tpu.apps.loopback import main; import sys;"
-         "sys.exit(main(['--replay', '/root/reference/data/data.bin', '--f64',"
-         " '--payload', '/root/reference/WARANDPEACE.txt']))"],
-        capture_output=True, text=True, cwd="/root/repo", timeout=300)
+         "from c_ofdm.apps.loopback import main; import sys;"
+         f"sys.exit(main(['--replay', '{data}', '--f64',"
+         f" '--payload', '{text}']))"],
+        capture_output=True, text=True, cwd=REPO, timeout=300)
     # payload differs from the head of WARANDPEACE only via MAC framing; the
     # app reports header fields + EVM; accuracy vs file is 1.0 because the
     # same file fed the reference TX
@@ -93,11 +96,11 @@ def test_loopback_app_replay_golden(tmp_path):
 
 
 def test_unified_cli_dispatch():
-    from c_ofdm_tpu.__main__ import main, APPS
+    from c_ofdm.__main__ import main, APPS
     import importlib
     assert main([]) == 0
     assert main(["nosuch"]) == 2
     # every registered app resolves to a module with a main(argv) entry
     for target, _ in APPS.values():
-        mod = importlib.import_module(f"c_ofdm_tpu.{target}")
+        mod = importlib.import_module(f"c_ofdm.{target}")
         assert callable(mod.main)

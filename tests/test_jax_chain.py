@@ -1,12 +1,12 @@
 """End-to-end JAX chain: golden-capture replay and TX/RX loopback, in both
-complex128 (golden parity) and complex64 (TPU production dtype)."""
+complex128 (golden parity) and complex64 (accelerator production dtype)."""
 
 import numpy as np
 import jax.numpy as jnp
 
-from c_ofdm_tpu.models import rx as rxm
-from c_ofdm_tpu.models import tx as txm
-from c_ofdm_tpu.oracle import reference as oracle
+from c_ofdm.models import rx as rxm
+from c_ofdm.models import tx as txm
+from c_ofdm.oracle import reference as oracle
 
 
 def _decode_mac_payload(mac_bytes_or_const, const):
@@ -96,10 +96,10 @@ def test_int16_staging_roundtrip(spec64, cfg):
 
 
 def test_golden_capture_matmul_backend(cfg, ref_capture, ref_decoded_text):
-    """The MXU matmul-DFT backend (the TPU production path) must decode the
+    """The matmul-DFT backend (the production path) must decode the
     golden capture identically in complex64."""
     import jax.numpy as jnp
-    from c_ofdm_tpu.models.frame import make_frame_spec
+    from c_ofdm.models.frame import make_frame_spec
     spec = make_frame_spec(cfg, dtype=jnp.complex64, fft_backend="matmul")
     cap = jnp.asarray(ref_capture.astype(np.complex64))
     res, s = rxm.receive_capture_jit(spec, cap)
@@ -110,9 +110,9 @@ def test_golden_capture_matmul_backend(cfg, ref_capture, ref_decoded_text):
 
 def test_golden_capture_matmul_bf16_backend(cfg, ref_capture, ref_constell,
                                             ref_decoded_text):
-    """bf16-operand MXU DFT: decode must be identical; EVM penalty tiny."""
+    """bf16-operand matmul DFT: decode must be identical; EVM penalty tiny."""
     import jax.numpy as jnp
-    from c_ofdm_tpu.models.frame import make_frame_spec
+    from c_ofdm.models.frame import make_frame_spec
     spec = make_frame_spec(cfg, dtype=jnp.complex64, fft_backend="matmul_bf16")
     cap = jnp.asarray(ref_capture.astype(np.complex64))
     res, s = rxm.receive_capture_jit(spec, cap)

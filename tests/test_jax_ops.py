@@ -3,10 +3,11 @@
 import numpy as np
 import jax
 import jax.numpy as jnp
+import pytest
 
-from c_ofdm_tpu.ops import bits as bitops
-from c_ofdm_tpu.ops import modulation, sync, cfo, chanest
-from c_ofdm_tpu.oracle import reference as oracle
+from c_ofdm.ops import bits as bitops
+from c_ofdm.ops import modulation, sync, cfo, chanest
+from c_ofdm.oracle import reference as oracle
 
 
 def test_bits_roundtrip():
@@ -105,7 +106,7 @@ def test_cfo_estimators_match_oracle(spec128, cfg, ref_capture):
 def test_window_ops_match_dynamic_slice(spec128):
     """aligned_window (block-aligned one-hot contraction) and dynamic_window
     (one-hot + 16x16 fine shift) must equal lax.dynamic_slice semantics —
-    they are the TPU gather-free forms of the sync/extract windows."""
+    they are the gather-free forms of the sync/extract windows."""
     rng = np.random.default_rng(7)
     n = 6016
     x = jnp.asarray(rng.normal(size=n) + 1j * rng.normal(size=n))
@@ -147,7 +148,7 @@ def test_first_above_peak_semantics():
     the config's auto rule engages it exactly above the reference's
     calibration point."""
     import jax.numpy as jnp
-    from c_ofdm_tpu.config import ModemConfig
+    from c_ofdm.config import ModemConfig
 
     # calibrated regime: crossing one lag before the peak -> peak = c+1
     t = jnp.asarray([0.1, 0.2, 0.6, 0.9, 0.4, 0.1])
@@ -175,12 +176,12 @@ def test_first_above_peak_semantics():
 
 
 def test_ct_dft_matches_fft():
-    """Two-stage Cooley-Tukey backend (wideband MXU path, ops/fft.py::ct_dft)
+    """Two-stage Cooley-Tukey backend (wideband matmul path, ops/fft.py::ct_dft)
     is exact vs the reference transform at several power-of-two sizes and in
     both directions/dtypes."""
     import numpy as np
     import jax.numpy as jnp
-    from c_ofdm_tpu.ops import fft as fftops
+    from c_ofdm.ops import fft as fftops
 
     rng = np.random.default_rng(5)
     for n in (64, 512, 8192):
@@ -199,8 +200,8 @@ def test_ct_backend_end_to_end():
     constellation matches the xla backend closely (both are exact DFTs)."""
     import numpy as np
     import jax.numpy as jnp
-    from c_ofdm_tpu import ModemConfig, make_frame_spec
-    from c_ofdm_tpu.models import rx as rxm, tx as txm
+    from c_ofdm import ModemConfig, make_frame_spec
+    from c_ofdm.models import rx as rxm, tx as txm
 
     cfg = ModemConfig()
     rng = np.random.default_rng(6)
@@ -215,3 +216,62 @@ def test_ct_backend_end_to_end():
     assert (outs["ct"][0] == np.asarray(payload)).all()
     assert (outs["ct"][0] == outs["xla"][0]).all()
     np.testing.assert_allclose(outs["ct"][1], outs["xla"][1], atol=1e-3)
+
+
+def _dot_precisions(jaxpr, acc):
+    """Precision of every dot_general in ``jaxpr``, nested jaxprs included."""
+    from jax.extend import core as jcore
+
+    def subs(v):
+        if isinstance(v, jcore.ClosedJaxpr):
+            yield v.jaxpr
+        elif isinstance(v, jcore.Jaxpr):
+            yield v
+        elif isinstance(v, (tuple, list)):
+            for x in v:
+                yield from subs(x)
+
+    for e in jaxpr.eqns:
+        if e.primitive.name == "dot_general":
+            acc.append(e.params["precision"])
+        for v in e.params.values():
+            for sj in subs(v):
+                _dot_precisions(sj, acc)
+    return acc
+
+
+@pytest.mark.parametrize("backend", ["matmul", "ct"])
+@pytest.mark.parametrize("stage", ["transmit", "demod_sig", "gated_hits",
+                                   "receive_batch"])
+def test_chain_dots_pin_precision(stage, backend, cfg):
+    """Every f32 dot on the chain carries ops.fft.PRECISION explicitly: an
+    accelerator whose default f32 dot is TF32 would otherwise round the IQ
+    samples (aligned_window) and the DFTs to ~3 decimal digits."""
+    from c_ofdm.models import rx as rxm, streaming, tx as txm
+    from c_ofdm.models.frame import make_frame_spec
+    from c_ofdm.ops import fft as fftops
+
+    spec = make_frame_spec(cfg, dtype=jnp.complex64, fft_backend=backend)
+    sig_len = cfg.preamble_len + cfg.message_len
+    fns = {
+        "transmit": (lambda x: txm.transmit(spec, x),
+                     jnp.zeros((2, cfg.frame_bytes), jnp.uint8)),
+        "demod_sig": (lambda x: rxm.demod_sig(spec, x),
+                      jnp.zeros((2, sig_len), jnp.complex64)),
+        "gated_hits": (lambda x: streaming.gated_hits(
+            spec, x, jnp.int32(0), 4),
+            jnp.zeros((2, 3 * cfg.frame_len), jnp.complex64)),
+        "receive_batch": (lambda x: rxm.receive_batch(spec, x),
+                          jnp.zeros((2, cfg.frame_len + 512), jnp.complex64)),
+    }
+    fn, arg = fns[stage]
+    precs = _dot_precisions(jax.make_jaxpr(fn)(arg).jaxpr, [])
+    assert precs, f"{stage}: no dot_general traced"
+    want = (fftops.PRECISION, fftops.PRECISION)
+    assert all(p == want for p in precs), (stage, precs)
+
+
+def test_ct_rejects_non_power_of_two():
+    from c_ofdm.ops import fft as fftops
+    with pytest.raises(ValueError, match="power-of-two"):
+        fftops.ct_dft(jnp.zeros((1, 768), jnp.complex64), sign=-1)

@@ -5,10 +5,10 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from c_ofdm_tpu.mac.mac import Mac, MacFrame
-from c_ofdm_tpu.channel.sim import ChannelParams, apply_channel
-from c_ofdm_tpu.models import rx as rxm
-from c_ofdm_tpu.models import tx as txm
+from c_ofdm.mac.mac import Mac, MacFrame
+from c_ofdm.channel.sim import ChannelParams, apply_channel
+from c_ofdm.models import rx as rxm
+from c_ofdm.models import tx as txm
 
 
 def test_mac_roundtrip_spread4():
@@ -110,7 +110,7 @@ def test_sco_multiframe_stream(spec64, cfg, sco_ppm):
     every frame CRC-clean — per-frame preamble sync re-acquires the
     accumulated drift, and the linear-phase channel estimator absorbs the
     sub-sample residual."""
-    from c_ofdm_tpu.models.streaming import StreamingReceiver
+    from c_ofdm.models.streaming import StreamingReceiver
 
     mac = Mac(frame_bytes=cfg.frame_bytes, spread=cfg.mod_type)
     rng = np.random.default_rng(7)
@@ -149,9 +149,9 @@ def test_mac_soft_llr_combining_beats_majority_vote():
     hard-decision-only reference, `OFDM/modulation.cpp:53-87`)."""
     import jax
     import jax.numpy as jnp
-    from c_ofdm_tpu.mac.mac import Mac
-    from c_ofdm_tpu.ops import bits as bitops
-    from c_ofdm_tpu.ops import modulation
+    from c_ofdm.mac.mac import Mac
+    from c_ofdm.ops import bits as bitops
+    from c_ofdm.ops import modulation
 
     mod, B = 4, 64
     mac = Mac(frame_bytes=1024, spread=mod)

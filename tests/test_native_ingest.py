@@ -6,7 +6,7 @@ import pytest
 
 pytest.importorskip("ctypes")
 
-from c_ofdm_tpu.io.ingest import (NativeIngest, SRC_FD_STREAM,  # noqa: E402
+from c_ofdm.io.ingest import (NativeIngest, SRC_FD_STREAM,  # noqa: E402
                                   SRC_FILE_REPLAY, SRC_SYNTH_ZERO,
                                   convert_i16_to_f32, load_library)
 
@@ -15,12 +15,12 @@ def test_build_and_load():
     assert load_library() is not None
 
 
-def test_file_replay_matches_and_loops():
-    ref = np.fromfile("/root/reference/data/source.bin", dtype=np.int16)
+def test_file_replay_matches_and_loops(golden):
+    src = golden("data/source.bin")
+    ref = np.fromfile(src, dtype=np.int16)
     ref_c = ref.astype(np.float32)
     ref_c = ref_c[::2] + 1j * ref_c[1::2]
-    with NativeIngest(SRC_FILE_REPLAY, "/root/reference/data/source.bin",
-                      6016, 4) as ing:
+    with NativeIngest(SRC_FILE_REPLAY, src, 6016, 4) as ing:
         assert np.array_equal(ing.pop_complex64(), ref_c)
         assert np.array_equal(ing.pop_complex64(), ref_c)  # loops
         assert np.array_equal(ing.pop_i16(), ref)
@@ -53,9 +53,9 @@ def test_native_ingest_feeds_streaming_rx(tmp_path, spec64, cfg):
     """File-replayed int16 frames through the native ring into the streaming
     receiver: payload recovered."""
     import jax.numpy as jnp
-    from c_ofdm_tpu.mac.mac import Mac
-    from c_ofdm_tpu.models import tx as txm
-    from c_ofdm_tpu.models.streaming import StreamingReceiver
+    from c_ofdm.mac.mac import Mac
+    from c_ofdm.models import tx as txm
+    from c_ofdm.models.streaming import StreamingReceiver
 
     mac = Mac(frame_bytes=cfg.frame_bytes, spread=cfg.mod_type)
     rng = np.random.default_rng(5)

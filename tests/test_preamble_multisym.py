@@ -20,11 +20,11 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from c_ofdm_tpu import ModemConfig, make_frame_spec
-from c_ofdm_tpu.mac.mac import Mac
-from c_ofdm_tpu.models import rx as rxm, streaming, tx as txm
-from c_ofdm_tpu.ops import chanest
-from c_ofdm_tpu.oracle import reference as oracle
+from c_ofdm import ModemConfig, make_frame_spec
+from c_ofdm.mac.mac import Mac
+from c_ofdm.models import rx as rxm, streaming, tx as txm
+from c_ofdm.ops import chanest
+from c_ofdm.oracle import reference as oracle
 
 CFG_P2 = ModemConfig(num_pr_symb=2)
 

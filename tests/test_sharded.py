@@ -7,10 +7,10 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from c_ofdm_tpu.mac.mac import Mac
-from c_ofdm_tpu.models import tx as txm
-from c_ofdm_tpu.parallel.mesh import make_modem_mesh
-from c_ofdm_tpu.parallel.sharded import make_sharded_receiver, global_positions
+from c_ofdm.mac.mac import Mac
+from c_ofdm.models import tx as txm
+from c_ofdm.parallel.mesh import make_modem_mesh
+from c_ofdm.parallel.sharded import make_sharded_receiver, global_positions
 
 
 def _build_capture(spec, cfg, n_frames, total_len, starts, seed=0, cfo=1e-4,
@@ -145,7 +145,7 @@ def test_sharded_channel_axis_independent(spec64, cfg, mesh8):
 def test_make_global_capture_sharding(spec64, cfg, mesh8):
     """parallel.ingest places a host-local capture with the canonical
     (channel, time) sharding; receiver output matches an unsharded input."""
-    from c_ofdm_tpu.parallel.ingest import capture_sharding, make_global_capture
+    from c_ofdm.parallel.ingest import capture_sharding, make_global_capture
 
     block_len = 4 * cfg.frame_len
     total_len = 4 * block_len
@@ -168,8 +168,8 @@ def test_sharded_streaming_matches_unsharded(spec64, cfg):
     channel streams over a 4-device channel mesh, two consecutive buffers
     with a boundary-straddling frame per channel — state threading and
     decode must match the unsharded [C]-batched process_buffer exactly."""
-    from c_ofdm_tpu.models import streaming
-    from c_ofdm_tpu.parallel.sharded import make_sharded_streaming
+    from c_ofdm.models import streaming
+    from c_ofdm.parallel.sharded import make_sharded_streaming
 
     C = 4
     mesh = make_modem_mesh(n_channel=4, n_time=1)

@@ -12,9 +12,9 @@ the C-axis machinery under test is size-generic.
 import numpy as np
 import jax.numpy as jnp
 
-from c_ofdm_tpu import ModemConfig, make_frame_spec
-from c_ofdm_tpu.mac.mac import Mac
-from c_ofdm_tpu.models import streaming, tx as txm
+from c_ofdm import ModemConfig, make_frame_spec
+from c_ofdm.mac.mac import Mac
+from c_ofdm.models import streaming, tx as txm
 
 C = 64
 N_BUFFERS = 2

@@ -25,9 +25,9 @@ length exercises:
 import numpy as np
 import jax.numpy as jnp
 
-from c_ofdm_tpu import ModemConfig, make_frame_spec
-from c_ofdm_tpu.mac.mac import Mac
-from c_ofdm_tpu.models import streaming, tx as txm
+from c_ofdm import ModemConfig, make_frame_spec
+from c_ofdm.mac.mac import Mac
+from c_ofdm.models import streaming, tx as txm
 
 N_BUFFERS = 1200
 SEQ_START = (1 << 32) - 1500        # wraps to 0 mid-run
